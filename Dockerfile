@@ -5,8 +5,8 @@ RUN apt-get update && apt-get install -y --no-install-recommends g++ && \
 
 WORKDIR /app
 COPY . /app
-RUN pip install --no-cache-dir jax numpy pandas h5py jsonschema scipy \
-    scikit-learn matplotlib && \
+RUN pip install --no-cache-dir jax numpy pandas jsonschema scipy \
+    matplotlib && \
     pip install --no-cache-dir -e . --no-deps
 
 ENTRYPOINT ["chromosight-tpu"]

@@ -1,9 +1,9 @@
-"""chromosight-tpu: a TPU-native Hi-C pattern-detection framework.
+"""chromosight-tpu: a JAX Hi-C pattern-detection framework.
 
 Re-implements the full capability surface of koszullab/chromosight
 (template-matching detection of chromatin loops, TAD borders, hairpins,
-centromeres and stripes in Hi-C contact maps) with a JAX/XLA/Pallas compute
-core designed for TPU hardware:
+centromeres and stripes in Hi-C contact maps) with a JAX/XLA compute
+core that runs on a GPU:
 
 * contact maps live on device as dense (or diagonal-banded) tensors instead
   of scipy sparse matrices;

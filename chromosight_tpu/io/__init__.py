@@ -1,4 +1,4 @@
-"""IO layer: .cool reading/writing (pure h5py, no cooler dependency),
+"""IO layer: .cool reading/writing (numpy + zlib HDF5, no h5py or cooler),
 kernel-config loading, bed2d parsing, pattern/window writers and the
 terminal progress bar.
 

@@ -1,4 +1,4 @@
-"""Minimal, fast .cool (HDF5::Cooler) reader/writer built directly on h5py.
+"""Minimal, fast .cool (HDF5::Cooler) reader/writer built on ``io.hdf5``.
 
 The reference implementation delegates all cool access to the ``cooler``
 package (reference ``utils/contacts_map.py:129``, ``utils/io.py:51``).  This
@@ -20,9 +20,10 @@ from __future__ import annotations
 import json
 import os
 
-import h5py
 import numpy as np
 import pandas as pd
+
+from chromosight_tpu.io import hdf5
 
 
 class CoolFile:
@@ -41,7 +42,7 @@ class CoolFile:
             self.path, self.group = self.path.split("::", 1)
         else:
             self.group = "/"
-        with h5py.File(self.path, "r") as f:
+        with hdf5.File(self.path) as f:
             g = f[self.group]
             attrs = dict(g.attrs)
             self._chrom_names = [
@@ -112,7 +113,7 @@ class CoolFile:
     def _raw_bbox(self, s1, e1, s2, e2):
         """COO triplets of stored (upper-triangle) pixels with
         bin1 in [s1, e1) and bin2 in [s2, e2).  No mirroring."""
-        with h5py.File(self.path, "r") as f:
+        with hdf5.File(self.path) as f:
             g = f[self.group]
             lo = int(self._bin1_offset[s1])
             hi = int(self._bin1_offset[e1])
@@ -173,7 +174,7 @@ class CoolFile:
         default - the device compute precision).
         """
         s, e = extent
-        with h5py.File(self.path, "r") as f:
+        with hdf5.File(self.path) as f:
             g = f[self.group]
             lo = int(self._bin1_offset[s])
             hi = int(self._bin1_offset[e])
@@ -221,7 +222,7 @@ class CoolFile:
                 "No 'weight' column in cool file; balance it first "
                 "(norm=force) or use raw values."
             )
-        with h5py.File(self.path, "r") as f:
+        with hdf5.File(self.path) as f:
             g = f[self.group]
             lo = int(self._bin1_offset[s])
             hi = int(self._bin1_offset[e])
@@ -299,7 +300,7 @@ class CoolFile:
         supported = tuple(
             np.dtype(t) for t in (np.int32, np.int64, np.float32, np.float64)
         )
-        with h5py.File(self.path, "r") as f:
+        with hdf5.File(self.path) as f:
             g = f[self.group]
             if g["pixels/count"].dtype not in supported:
                 return None
@@ -339,7 +340,7 @@ class CoolFile:
         cast-free into the native kernels).  ``indptr`` is the absolute
         ``bin1_offset[s : e+1]`` slice; bin1 ids are implied by it and
         never read."""
-        with h5py.File(self.path, "r") as f:
+        with hdf5.File(self.path) as f:
             g = f[self.group]
             lo = int(self._bin1_offset[s])
             hi = int(self._bin1_offset[e])
@@ -377,7 +378,7 @@ class CoolFile:
 
         if native.get_lib() is None:
             return None
-        with h5py.File(self.path, "r") as f:
+        with hdf5.File(self.path) as f:
             g = f[self.group]
             lo = int(self._bin1_offset[s1])
             hi = int(self._bin1_offset[e1])
@@ -396,7 +397,7 @@ class CoolFile:
 
     def pixel_chunks(self, chunksize=10_000_000):
         """Iterate over the whole pixel table in chunks of COO triplets."""
-        with h5py.File(self.path, "r") as f:
+        with hdf5.File(self.path) as f:
             g = f[self.group]
             n = self._nnz
             for lo in range(0, n, int(chunksize)):
@@ -413,17 +414,17 @@ class CoolFile:
     # cooler.balance_cooler(store=True) - reference contacts_map.py:209-219)
     # ------------------------------------------------------------------ #
     def store_weights(self, weights, name="weight", stats=None):
+        """Store ``weights`` as ``bins/<name>`` (with ``stats`` as its
+        attributes), replacing an earlier one.  The file is edited in
+        place (:func:`hdf5.store_dataset`): the weights are appended and
+        linked into the bins group; no other data is read or rewritten."""
         weights = np.asarray(weights, dtype=np.float64)
         if weights.shape[0] != self.n_bins:
             raise ValueError("weights length must equal number of bins")
-        with h5py.File(self.path, "r+") as f:
-            g = f[self.group]
-            if name in g["bins"]:
-                del g["bins"][name]
-            d = g["bins"].create_dataset(name, data=weights)
-            if stats:
-                for k, v in stats.items():
-                    d.attrs[k] = v
+        hdf5.store_dataset(
+            self.path, f"{self.group.rstrip('/')}/bins", name,
+            (weights, dict(stats or {})),
+        )
         self._weight = weights
         self._has_weight = True
 
@@ -487,7 +488,7 @@ def create_cool(
         When True (default), pixel id/count columns are stored in the
         narrowest lossless integer dtype (int32 when they fit) — half
         the bytes the IO-bound genome scan streams.  Dtype-agnostic
-        h5py readers (ours, cooler's) read these fine; pass False to
+        readers (ours, cooler's) read these fine; pass False to
         emit the canonical int64 columns ``cooler.create_cooler``
         writes, for strict cooler-schema consumers.
     """
@@ -519,54 +520,57 @@ def create_cool(
     sizes = bins["end"].to_numpy(np.int64) - bins["start"].to_numpy(np.int64)
     binsize = int(np.bincount(sizes).argmax()) if len(sizes) else 0
 
-    with h5py.File(path, "w") as f:
-        f.attrs["format"] = "HDF5::Cooler"
-        f.attrs["format-version"] = "3"
-        f.attrs["format-url"] = "https://github.com/mirnylab/cooler"
-        f.attrs["bin-type"] = "fixed"
-        f.attrs["bin-size"] = binsize
-        f.attrs["storage-mode"] = "symmetric-upper"
-        f.attrs["nbins"] = n_bins
-        f.attrs["nchroms"] = len(chrom_names)
-        f.attrs["nnz"] = len(b1)
-        f.attrs["sum"] = float(ct.sum())
-        f.attrs["genome-assembly"] = assembly
-        f.attrs["generated-by"] = "chromosight-tpu"
-        f.attrs["metadata"] = json.dumps(metadata or {})
-        f.create_dataset(
-            "chroms/name",
-            data=np.array(chrom_names, dtype="S32"),
-        )
-        f.create_dataset("chroms/length", data=lengths.astype(np.int32))
-        f.create_dataset("bins/chrom", data=chrom_ids)
-        f.create_dataset(
-            "bins/start", data=bins["start"].to_numpy(np.int32)
-        )
-        f.create_dataset("bins/end", data=bins["end"].to_numpy(np.int32))
-        if "weight" in bins.columns:
-            f.create_dataset(
-                "bins/weight", data=bins["weight"].to_numpy(np.float64)
-            )
-        # Minimal storage dtypes: readers (ours and cooler's h5py layer)
-        # are dtype-agnostic, and the pixel table dominates both the file
-        # size and every fetch — int32 ids halve the bytes the IO-bound
-        # genome scan streams vs int64 (real genomes have << 2^31 bins).
-        id_dtype = (
-            np.int32
-            if minimal_dtypes and n_bins <= np.iinfo(np.int32).max
-            else np.int64
-        )
-        if (
-            minimal_dtypes
-            and np.issubdtype(ct.dtype, np.integer)
-            and ct.size
-            and ct.max() <= np.iinfo(np.int32).max
-            and ct.min() >= 0
-        ):
-            ct = ct.astype(np.int32)
-        f.create_dataset("pixels/bin1_id", data=b1.astype(id_dtype))
-        f.create_dataset("pixels/bin2_id", data=b2.astype(id_dtype))
-        f.create_dataset("pixels/count", data=ct)
-        f.create_dataset("indexes/chrom_offset", data=chrom_offset)
-        f.create_dataset("indexes/bin1_offset", data=bin1_offset)
+    # Minimal storage dtypes: readers (ours and cooler's) are
+    # dtype-agnostic, and the pixel table dominates both the file size
+    # and every fetch — int32 ids halve the bytes the IO-bound genome
+    # scan streams vs int64 (real genomes have << 2^31 bins).
+    id_dtype = (
+        np.int32
+        if minimal_dtypes and n_bins <= np.iinfo(np.int32).max
+        else np.int64
+    )
+    if (
+        minimal_dtypes
+        and np.issubdtype(ct.dtype, np.integer)
+        and ct.size
+        and ct.max() <= np.iinfo(np.int32).max
+        and ct.min() >= 0
+    ):
+        ct = ct.astype(np.int32)
+    bins_tree = hdf5.Tree(
+        chrom=chrom_ids,
+        start=bins["start"].to_numpy(np.int32),
+        end=bins["end"].to_numpy(np.int32),
+    )
+    if "weight" in bins.columns:
+        bins_tree["weight"] = bins["weight"].to_numpy(np.float64)
+    tree = hdf5.Tree(
+        chroms=hdf5.Tree(
+            name=np.array(chrom_names, dtype="S32"),
+            length=lengths.astype(np.int32),
+        ),
+        bins=bins_tree,
+        pixels=hdf5.Tree(
+            bin1_id=b1.astype(id_dtype),
+            bin2_id=b2.astype(id_dtype),
+            count=ct,
+        ),
+        indexes=hdf5.Tree(chrom_offset=chrom_offset, bin1_offset=bin1_offset),
+        attrs={
+            "format": "HDF5::Cooler",
+            "format-version": "3",
+            "format-url": "https://github.com/mirnylab/cooler",
+            "bin-type": "fixed",
+            "bin-size": binsize,
+            "storage-mode": "symmetric-upper",
+            "nbins": n_bins,
+            "nchroms": len(chrom_names),
+            "nnz": len(b1),
+            "sum": float(ct.sum()),
+            "genome-assembly": assembly,
+            "generated-by": "chromosight-tpu",
+            "metadata": json.dumps(metadata or {}),
+        },
+    )
+    hdf5.write_file(path, tree)
     return path

@@ -1,6 +1,6 @@
 // Native host-side kernels for chromosight-tpu.
 //
-// The TPU owns the dense correlation math; these routines cover the
+// The device owns the dense correlation math; these routines cover the
 // combinatorial host tail that the reference delegates to scipy
 // (connected-component labeling over candidate pixels,
 // reference utils/detection.py:459-554) and the COO -> band scatter that

@@ -34,14 +34,10 @@ from jax import lax
 from chromosight_tpu.ops.convolve import (
     DEFAULT_THRESHOLD,
     conv2d_valid,
-    conv2d_valid_chunked,
-    conv2d_valid_phase,
     conv2d_valid_separable,
     pad_margins,
     window_sum_valid,
     _snap_small,
-    _use_chunk_conv,
-    _use_phase_conv,
 )
 
 
@@ -270,7 +266,7 @@ def _normxcorr_impl(
 
 def _ones_toeplitz(w_in, taps, dtype):
     """Banded (w_in, w_in - taps + 1) matrix of ones: multiplying by it
-    performs a valid 1D sliding-window sum along the width on the MXU."""
+    performs a valid 1D sliding-window sum along the width as a matmul."""
     r = _iota2((w_in, w_in - taps + 1), 0)
     c = _iota2((w_in, w_in - taps + 1), 1)
     t = r - c
@@ -300,8 +296,8 @@ def normxcorr_crossing_valid(
     2048-wide tile this removes half the dense reduction work, which
     dominates genome-scale --inter scans.  The remaining dense work is
     the three signal reductions: one fori pass over kernel rows with
-    row-sum accumulators, then banded-Toeplitz column window sums on
-    the MXU.
+    row-sum accumulators, then banded-Toeplitz column window sums as
+    matmuls.
 
     Inputs are in *framed* coordinates (margins marked missing in
     rvec/cvec, zero signal outside the matrix).  Returns
@@ -325,56 +321,29 @@ def normxcorr_crossing_valid(
         return _snap_small(x, threshold)
 
     # ---- signal reductions ---- #
-    if _use_chunk_conv():
-        # Block-banded chunked-Toeplitz: conv_sk, the signal window sum
-        # and the squared-signal window sum all ride ONE slab read per
-        # kernel row (mk HBM passes total vs mk*nk for the shift-FMA);
-        # the square is formed per slab, never materialized.
-        ones = jnp.ones((mk, nk), dt)
-        conv_sk, sig_ws, sig2_ws = conv2d_valid_chunked(
-            block, kern_scaled, (ones,), (ones,)
-        )
-        conv_sk = snap(conv_sk)
-        sig_mean0 = snap(sig_ws / ksize_f)
-        sig2_mean0 = snap(sig2_ws / ksize_f)
-    elif _use_phase_conv():
-        # Polyphase MXU conv: conv_sk and the signal window-sum share one
-        # pass (the ones kernel rides as a second output-channel group);
-        # the squared-signal window-sum runs as separable tap adds.
-        # Measured 319 ms -> 77/120 ms per 32x2080^2 batch vs the fori
-        # shift-FMA (whose traced row offset batches to a gather under
-        # vmap and re-reads HBM once per tap).
-        ones = jnp.ones((mk, nk), dt)
-        conv_sk, sig_ws = conv2d_valid_phase(block, kern_scaled, (ones,))
-        conv_sk = snap(conv_sk)
-        sig_mean0 = snap(sig_ws / ksize_f)
-        sig2_mean0 = snap(
-            window_sum_valid(block * block, kernel_shape) / ksize_f
-        )
-    else:
-        # fori over kernel rows, 3 accumulators (flag-gated fallback)
-        def body(u, accs):
-            conv_acc, row_acc, row2_acc = accs
-            srow = lax.dynamic_slice(block, (u, 0), (h_out, W))
-            krow = lax.dynamic_slice(kern_scaled, (u, 0), (1, nk))
-            t = None
-            for v in range(nk):
-                x = lax.slice(srow, (0, v), (h_out, v + w_out)) * krow[0, v]
-                t = x if t is None else t + x
-            return (conv_acc + t, row_acc + srow, row2_acc + srow * srow)
+    # fori over kernel rows, 3 accumulators
+    def body(u, accs):
+        conv_acc, row_acc, row2_acc = accs
+        srow = lax.dynamic_slice(block, (u, 0), (h_out, W))
+        krow = lax.dynamic_slice(kern_scaled, (u, 0), (1, nk))
+        t = None
+        for v in range(nk):
+            x = lax.slice(srow, (0, v), (h_out, v + w_out)) * krow[0, v]
+            t = x if t is None else t + x
+        return (conv_acc + t, row_acc + srow, row2_acc + srow * srow)
 
-        z2 = jnp.zeros((h_out, w_out), dt)
-        zr = jnp.zeros((h_out, W), dt)
-        conv_sk, row_s, row_s2 = lax.fori_loop(0, mk, body, (z2, zr, zr))
-        conv_sk = snap(conv_sk)
-        tones = _ones_toeplitz(W, nk, dt)
-        sig_mean0 = snap(
-            jnp.dot(row_s, tones, precision=lax.Precision.HIGHEST) / ksize_f
-        )
-        sig2_mean0 = snap(
-            jnp.dot(row_s2, tones, precision=lax.Precision.HIGHEST)
-            / ksize_f
-        )
+    z2 = jnp.zeros((h_out, w_out), dt)
+    zr = jnp.zeros((h_out, W), dt)
+    conv_sk, row_s, row_s2 = lax.fori_loop(0, mk, body, (z2, zr, zr))
+    conv_sk = snap(conv_sk)
+    tones = _ones_toeplitz(W, nk, dt)
+    sig_mean0 = snap(
+        jnp.dot(row_s, tones, precision=lax.Precision.HIGHEST) / ksize_f
+    )
+    sig2_mean0 = snap(
+        jnp.dot(row_s2, tones, precision=lax.Precision.HIGHEST)
+        / ksize_f
+    )
 
     # ---- mask reductions: rank-collapsed crossing convolutions ---- #
     nr = 1.0 - rvec.astype(dt)  # present-row indicator

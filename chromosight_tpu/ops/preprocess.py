@@ -4,7 +4,7 @@ These are the XLA equivalents of the reference's sparse preprocessing
 (``utils/preprocessing.py``), operating on dense contact-map tensors that
 live in HBM.  The distance law is computed with a shear gather (each row
 rolled so diagonals become columns) followed by masked column reductions -
-O(n * n_diags) contiguous work that vectorises on the VPU, replacing the
+O(n * n_diags) contiguous work that vectorises on the device, replacing the
 reference's per-diagonal Python loop (``preprocessing.py:178-188``).
 """
 

@@ -3,14 +3,14 @@
 The reference computes sparse cross-correlations through chains of sparse
 Toeplitz matrix products (reference ``utils/detection.py:627-723`` for
 ``xcorr2`` and ``917-1131`` for ``normxcorr2``) — a CPU cache-friendly
-formulation that never densifies the signal.  The TPU-native equivalent is
+formulation that never densifies the signal.  The device equivalent is
 block decomposition: the sparse matrix is cut into a grid of fixed-size
-tiles, each tile is extended by a kernel-sized halo and densified host-side
-(memory bounded by the tile size, never O(n^2)), the fused MXU engines in
+tiles, each tile is extended by a kernel-sized halo and densified
+(memory bounded by the tile size, never O(n^2)), the fused engines in
 ``ops.convolve`` / ``ops.normxcorr`` scan the dense block, and the
 per-tile results are reassembled into one sparse matrix.
 
-Why this shape for TPU:
+Why this shape:
 * every block has the same static shape, so XLA compiles the fused Pearson
   program exactly once regardless of the input size;
 * tiles whose extended block contains no signal are skipped before any
@@ -22,8 +22,7 @@ Why this shape for TPU:
   (kernel-1) pixels makes tiling exact: every kept output pixel sees the
   same window bytes the whole-matrix dense engine would.
 
-Link-frugal execution (the engine's second design axis — the host link
-may be slow, e.g. a tunneled device):
+Transfer-frugal execution:
 * sparse tiles ship COO triplets and scatter on device; dense-ish tiles
   ship the dense block (`_tile_to_device` picks per tile);
 * crossing masks (missing rows | cols, the inter-map case) ship as two
@@ -55,8 +54,7 @@ from chromosight_tpu.ops import pow2
 DEFAULT_TILE = 2048
 # Tiles batched per device dispatch in the Pearson scan: one fused
 # scatter->correlate->extract program runs B tiles per call, amortising
-# the per-dispatch link latency that dominates genome-scale --inter
-# scans through a slow host<->device link.
+# the per-dispatch cost over B tiles.
 DEFAULT_TILE_BATCH = 32
 
 
@@ -126,13 +124,11 @@ def _extract_nonzero_tile(
 ):
     """Device-side sparse extraction of a tile's output: indices/values of
     the nonzero correlations (and their log-p values), padded to ``cap``
-    with row index T.  Downloads O(cap) instead of the T x T block —
-    through a slow host link a genome-scale trans scan is dominated by
-    block downloads otherwise.  ``keep_min`` restricts extraction to
+    with row index T.  Downloads O(cap) instead of the T x T block.  ``keep_min`` restricts extraction to
     coefficients >= keep_min (the detect candidate filter).
 
     Returns ONE (4, cap) float32 array [rows, cols, corr, logp]: a
-    single packed download costs one link roundtrip instead of four
+    single packed download instead of four
     (indices are exact in f32: tiles are < 2^24 wide)."""
 
     def build():
@@ -323,9 +319,9 @@ def _tile_to_device(ii, jj, vv, mp, shape):
     """Per-tile device upload from a host descriptor: returns
     (block, mask_block).  Well-filled tiles ship the dense block; sparse
     tiles ship COO triplets (padded to power-of-two capacities so the
-    scatter program compiles once per bucket) and scatter on device —
-    through a slow link a genome-scale trans pair is ~10 GB of dense
-    blocks but only MBs of triplets."""
+    scatter program compiles once per bucket) and scatter on device — a
+    genome-scale trans pair is ~10 GB of dense blocks but only MBs of
+    triplets."""
     import jax.numpy as jnp
 
     BM, BN = shape
@@ -387,9 +383,8 @@ def _batched_pearson_program():
     the concatenated COO triplets into (B, BM, BN) blocks, build the mask
     blocks, run the fused Pearson over the batch axis (vmap), and extract
     each tile's packed (4, cap) nonzero output — a single dispatch and a
-    single (B, 4, cap) download where the per-tile path pays B dispatches.
-    This is what makes genome-scale --inter scans dispatch-latency-proof
-    on a high-latency host<->device link."""
+    single (B, 4, cap) download where the per-tile path pays B
+    dispatches."""
 
     def build():
         import jax
@@ -409,14 +404,13 @@ def _batched_pearson_program():
         def extract_topk(sub, lsub, T, cap_ex, keep_min):
             """Packed (4, cap) extraction via top_k: selection runs as an
             optimised partial sort instead of nonzero's cumsum +
-            searchsorted + two random gathers (~5x faster per tile).
+            searchsorted + two random gathers.
             Invalid slots carry row index T (the collector's fill
             convention).
 
             keep_min mode runs TWO-STAGE: per-row top-ROW_K, then a
-            global top_k over the T*ROW_K survivors — measured 2.2x
-            faster than the flat T*T top_k (the flat sort cost is nearly
-            k-independent).  Correctness guard: a row holding more than
+            global top_k over the T*ROW_K survivors, in place of one
+            flat T*T top_k whose sort cost is nearly k-independent.  Correctness guard: a row holding more than
             ROW_K candidates would silently truncate, so the kernel
             checks max per-row candidate count and signals the overflow
             by writing row sentinel T+1 into slot 0 — the collector
@@ -485,8 +479,7 @@ def _batched_pearson_program():
             force_window_nobs, keep_min,
         ):
             # All host inputs arrive as ONE packed f32 buffer (indices
-            # bitcast through f32): through a high-latency link every
-            # separate device_put costs a round trip.
+            # bitcast through f32): one device_put per batch.
             sflat = lax_bitcast(hostbuf[0:cap_up])
             sval = hostbuf[cap_up : 2 * cap_up]
             off = 2 * cap_up
@@ -819,12 +812,10 @@ def _pipeline(dispatch, items, depth=None):
     """Bounded-depth async pipeline: dispatch() enqueues device work and
     returns a token holding device arrays; tokens are yielded back (for
     host materialisation) ``depth`` items behind the dispatch front, so
-    uploads, compute and downloads of consecutive tiles overlap instead
-    of paying a full link roundtrip per tile.
+    uploads, compute and downloads of consecutive tiles overlap.
 
     Dispatches run on a small thread pool (CHROMOSIGHT_TPU_DISPATCH_THREADS,
-    default 2): through a high-latency link each enqueue itself costs
-    round trips (device_puts + program call), which would otherwise
+    default 2), so enqueues (device_puts + program call) do not
     serialize against the main thread's download waits."""
     from collections import deque
 
@@ -835,8 +826,8 @@ def _pipeline(dispatch, items, depth=None):
         from concurrent.futures import ThreadPoolExecutor
 
         def _await(fut):
-            # enqueue latency (device_puts + program call round trips on
-            # the dispatch pool) surfaces here when the pool falls behind
+            # enqueue latency (device_puts + program call on the
+            # dispatch pool) surfaces here when the pool falls behind
             with _obs.stage("device wait: dispatch"):
                 return fut.result()
 
@@ -872,7 +863,7 @@ def _assemble(rows, cols, vals, shape, dtype=np.float32):
 
 
 def xcorr2_sparse_tiled(signal, kernel, threshold=1e-4, tile=None):
-    """Sparse cross-correlation via halo-tiled dense MXU convolutions.
+    """Sparse cross-correlation via halo-tiled dense convolutions.
 
     Behavioural equivalent of the reference sparse ``_xcorr2_sparse``
     (``detection.py:627-723``): output has the signal's shape, margins
@@ -959,8 +950,7 @@ def normxcorr2_sparse_tiled(
     ``keep_min`` (detect-mode fast path) keeps only coefficients
     >= keep_min in the returned matrices: everything detection consumes
     downstream (foci, per-focus scores, p-value gathers) reads candidate
-    pixels only, and through a slow host link the full-map download
-    dominates the scan.  Leave None for the reference-parity full map.
+    pixels only, and the full-map download would dominate the scan.  Leave None for the reference-parity full map.
     """
     import jax.numpy as jnp
 

@@ -23,10 +23,10 @@ This module formulates the same computation with ``jax.shard_map``:
   ``_pearson_core`` — shared code, so the engines cannot drift), with
   global row coordinates reconstructed from ``lax.axis_index``.
 
-Because convolutions in the shift+Toeplitz-matmul formulation reduce
-only along the width axis, row-sharding reorders no reduction
-mathematically; in practice XLA tiles the matmuls differently for slab
-vs full-row shapes, so scores agree with the single-device
+Because the convolutions (shifted multiply-adds) reduce only over the
+kernel's taps, row-sharding reorders no reduction mathematically; in
+practice XLA may fuse the float32 arithmetic differently for slab vs
+full-row shapes, so scores agree with the single-device
 ``band_normxcorr`` to ~1e-6 with IDENTICAL candidate maps (asserted in
 tests/test_parallel.py), the same fp32-scheduling equivalence class as
 the GSPMD path.

@@ -370,8 +370,7 @@ def test_detect_deterministic(tmp_path):
 
     cool = str(pathlib.Path(__file__).parents[1] / "data_test" / "example.cool")
     # determinism is a host/compiler property; pin the subprocesses to CPU
-    # so the test does not depend on (possibly flaky) device connectivity
-    env = dict(os.environ, CHROMOSIGHT_TPU_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     outs = []
     for name in ("a", "b"):
         prefix = str(tmp_path / name)

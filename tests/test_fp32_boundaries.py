@@ -13,8 +13,8 @@ boundaries where an f32 engine can flip a call vs the f64 reference
 3. the pearson threshold itself — scores engineered to straddle it.
 
 Each test engineers windows AT the boundary and asserts call-set
-stability against a float64 numpy oracle implementing the exact same
-algebra (``ops.band._pearson_core``).
+stability against the float64 numpy oracle ``ops.oracle`` (the exact same
+algebra as ``ops.band._pearson_core``).
 """
 
 import numpy as np
@@ -31,65 +31,13 @@ PEARSON = 0.3
 N, WIDTH, MAX_DIST = 512, 128, 100
 
 
-def _shear(k):
-    from chromosight_tpu.ops.band import shear_kernel
-
-    return np.asarray(shear_kernel(np.asarray(k, np.float64)))
-
-
-def _oracle(sig_p, mask_p, K, threshold=1e-4):
-    """float64 numpy mirror of ops.band._pearson_core (six convolutions
-    + missing-corrected Pearson algebra + guards) on the framed band."""
-    from scipy.signal import correlate2d
-
-    K = np.asarray(K, np.float64)
-    sh_k, sh_k2 = _shear(K), _shear(K**2)
-    sh_1 = _shear(np.ones_like(K))
-    ksum, k2sum = K.sum(), (K**2).sum()
-
-    def snap(x):
-        x = np.asarray(x)
-        x[np.abs(x) < threshold] = 0.0
-        return x
-
-    conv_sk = snap(correlate2d(sig_p, sh_k / KSIZE, mode="valid"))
-    sig_mean0 = snap(correlate2d(sig_p, sh_1, mode="valid") / KSIZE)
-    sig2_mean0 = snap(correlate2d(sig_p**2, sh_1, mode="valid") / KSIZE)
-    n_miss = snap(correlate2d(mask_p, sh_1, mode="valid"))
-    conv_mk = snap(correlate2d(mask_p, sh_k, mode="valid"))
-    conv_mk2 = snap(correlate2d(mask_p, sh_k2, mode="valid"))
-
-    with np.errstate(divide="ignore", invalid="ignore"):
-        n_pres = KSIZE - n_miss
-        kmean_eff = (ksum - conv_mk) / n_pres
-        k2mean_eff = (k2sum - conv_mk2) / n_pres
-        corr_f = KSIZE / n_pres
-        sig_mean = sig_mean0 * corr_f
-        sig2_mean = sig2_mean0 * corr_f
-        denom = np.sqrt(
-            (sig2_mean - sig_mean**2) * (k2mean_eff - kmean_eff**2)
-        )
-        denom[n_pres < MIN_PRES] = 0.0
-        num = (conv_sk - sig_mean * kmean_eff / corr_f) * corr_f
-        out = np.where(np.abs(denom) < 1e-10, 0.0, num / denom)
-    out[~np.isfinite(out)] = 0.0
-    np.clip(out, -1.0, 1.0, out=out)
-    return out, n_pres
-
-
 def _run_engine(band, missing, K):
-    """Engine + oracle correlation maps on the same framed inputs.
-
-    Framing (0/1 mask assembly and zero padding) is exact in any float
-    width, so the oracle reuses the engine's framed arrays — isolating
-    the comparison to the f32 conv + Pearson algebra under test."""
+    """Engine and float64 oracle (``ops.oracle.band_oracle``) correlation
+    maps on the same framed inputs, with the oracle's n_pres."""
     import jax.numpy as jnp
 
-    from chromosight_tpu.ops.band import (
-        _band_frame,
-        band_normxcorr,
-        shear_kernel,
-    )
+    from chromosight_tpu.ops.band import band_normxcorr, shear_kernel
+    from chromosight_tpu.ops.oracle import band_oracle
 
     band32 = jnp.asarray(band, jnp.float32)
     miss = jnp.asarray(missing)
@@ -105,17 +53,9 @@ def _run_engine(band, missing, K):
         MISSING_TOL,
         PEARSON,
     )
-    sig_p, mask_p = _band_frame(band32, miss, (MK, NK), N, MAX_DIST)
-    out64, n_pres = _oracle(
-        np.asarray(sig_p, np.float64), np.asarray(mask_p, np.float64), K
+    out64, _logp64, n_pres = band_oracle(
+        band32, missing, K, N, MAX_DIST, MISSING_TOL
     )
-    kh = (MK - 1) // 2
-    out64 = out64[kh : kh + N]
-    n_pres = n_pres[kh : kh + N]
-    # oracle diag-trim (mirrors band_normxcorr's epilogue)
-    i, d = np.indices(out64.shape)
-    keep = (d <= MAX_DIST) & (i < N) & ((i + d) < N)
-    out64[~keep] = 0.0
     return np.asarray(corr, np.float64), out64, n_pres
 
 
@@ -200,6 +140,7 @@ def test_denominator_guard_constant_and_near_constant_windows():
     from scipy.signal import correlate2d
 
     from chromosight_tpu.ops.band import _band_frame
+    from chromosight_tpu.ops.oracle import shear64
 
     import jax.numpy as jnp
 
@@ -211,7 +152,7 @@ def test_denominator_guard_constant_and_near_constant_windows():
         MAX_DIST,
     )
     sig_p = np.asarray(sig_p, np.float64)
-    sh_1 = _shear(np.ones((MK, NK)))
+    sh_1 = shear64(np.ones((MK, NK)))
     m1 = correlate2d(sig_p, sh_1, mode="valid") / KSIZE
     m2 = correlate2d(sig_p**2, sh_1, mode="valid") / KSIZE
     var64 = (m2 - m1**2)[(MK - 1) // 2 :][:N]
@@ -272,3 +213,21 @@ def test_pearson_threshold_straddle():
             # clear windows: same side of the threshold, both engines
             assert (got32 >= PEARSON) == (rho >= PEARSON)
             assert (got64 >= PEARSON) == (rho >= PEARSON)
+
+
+def test_oracle_row_slices_match_the_full_oracle():
+    """The oracle of a row slice (what chip_smoke.py runs at genome
+    scale) equals those rows of the whole-band oracle, at both ends of
+    the band where the frame rules apply."""
+    from chromosight_tpu.ops.oracle import band_oracle
+
+    rng = np.random.default_rng(3)
+    band = _base_band(rng)
+    missing = np.zeros(N, bool)
+    missing[[7, 200, 505]] = True
+    K = get_K()
+    full = band_oracle(band, missing, K, N, MAX_DIST, MISSING_TOL)
+    for lo, hi in [(0, 60), (230, 300), (N - 60, N)]:
+        part = band_oracle(band, missing, K, N, MAX_DIST, MISSING_TOL, rows=(lo, hi))
+        for a, b in zip(part, full):
+            assert np.array_equal(a, b[lo:hi], equal_nan=True)

@@ -7,7 +7,7 @@ the reference's own ``cmd_detect`` (reference ``cli/chromosight.py:
 625-896``) end-to-end on the deterministic seed-0 synthetic genome via
 ``tools/run_reference_e2e.py`` — real reference code, not a
 reimplementation.  The tests regenerate the genome if missing (cached
-under /tmp/chromosight_bench), fingerprint it against the goldens'
+under build/chromosight_bench), fingerprint it against the goldens'
 recorded identity, and assert exact (bin1, bin2, kernel_id, iteration)
 equality plus fp32-tolerance scores.
 
@@ -26,10 +26,12 @@ import numpy as np
 import pandas as pd
 import pytest
 
+from chromosight_tpu.ops.oracle import genome_fingerprint
+
 REPO = pathlib.Path(__file__).parents[1]
 DATA = pathlib.Path(__file__).parent / "data"
 CACHE = pathlib.Path(
-    os.environ.get("CHROMOSIGHT_BENCH_CACHE", "/tmp/chromosight_bench")
+    os.environ.get("CHROMOSIGHT_BENCH_CACHE", REPO / "build" / "chromosight_bench")
 )
 GENOME = CACHE / "genome_50000x3.cool"
 
@@ -40,22 +42,6 @@ pytestmark = [
         reason="genome-scale tests disabled by env",
     ),
 ]
-
-
-def genome_fingerprint(path):
-    """Cheap identity of a synthetic genome: pixel count plus a checksum
-    of a deterministic pixel sample (the generator is seeded, so this is
-    stable across machines)."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
-        ct = f["pixels/count"]
-        n = ct.shape[0]
-        sample = ct[:: max(n // 4096, 1)][:4096]
-        return {
-            "nnz": int(n),
-            "checksum": int(np.asarray(sample, np.int64).sum()),
-        }
 
 
 @pytest.fixture(scope="session")

@@ -59,12 +59,12 @@ def test_detect_matches_reference_scores(detect_out):
     tolerance (the tsv prints 10 decimals)."""
     golden = pd.read_csv(DATA / "golden_detect_loops.tsv", sep="\t")
     m = golden.merge(
-        detect_out, on=["bin1", "bin2"], suffixes=("_ref", "_tpu")
+        detect_out, on=["bin1", "bin2"], suffixes=("_ref", "_ours")
     )
     assert len(m) == 89
-    assert np.abs(m.score_ref - m.score_tpu).max() < 5e-5
-    assert np.abs(m.pvalue_ref - m.pvalue_tpu).max() < 1e-6
-    assert np.abs(m.qvalue_ref - m.qvalue_tpu).max() < 1e-6
+    assert np.abs(m.score_ref - m.score_ours).max() < 5e-5
+    assert np.abs(m.pvalue_ref - m.pvalue_ours).max() < 1e-6
+    assert np.abs(m.qvalue_ref - m.qvalue_ours).max() < 1e-6
 
 
 @pytest.mark.parametrize(
@@ -111,10 +111,10 @@ def test_detect_flag_configs_match_reference(
     key = ["bin1", "bin2", "kernel_id", "iteration"]
     assert len(o) == len(g)
     assert set(map(tuple, o[key].values)) == set(map(tuple, g[key].values))
-    m = g.merge(o, on=key, suffixes=("_ref", "_tpu"))
+    m = g.merge(o, on=key, suffixes=("_ref", "_ours"))
     assert len(m) == len(g)
-    assert np.abs(m.score_ref - m.score_tpu).max() < 5e-5
-    assert np.abs(m.pvalue_ref - m.pvalue_tpu).max() < 1e-5
+    assert np.abs(m.score_ref - m.score_ours).max() < 5e-5
+    assert np.abs(m.pvalue_ref - m.pvalue_ours).max() < 1e-5
     if golden == "golden_detect_loops_iter2":
         # the pileup-refined second iteration must actually run and add
         # its own calls (reference finds 12 extra patterns at iteration 1)
@@ -131,15 +131,15 @@ def test_quantify_matches_reference(tmp_path, example_cool_session):
     assert rc in (0, None)
     ours = pd.read_csv(prefix + ".tsv", sep="\t")
     assert len(ours) == len(golden) == 53
-    m = golden.merge(ours, on=["bin1", "bin2"], suffixes=("_ref", "_tpu"))
+    m = golden.merge(ours, on=["bin1", "bin2"], suffixes=("_ref", "_ours"))
     assert len(m) == 53
     # same validation outcome per coordinate (NaN = rejected window)
-    assert (m.score_ref.isna() == m.score_tpu.isna()).all()
+    assert (m.score_ref.isna() == m.score_ours.isna()).all()
     ok = m.score_ref.notna()
-    assert np.abs(m.score_ref[ok] - m.score_tpu[ok]).max() < 5e-5
+    assert np.abs(m.score_ref[ok] - m.score_ours[ok]).max() < 5e-5
     okp = m.pvalue_ref.notna()
-    assert (m.pvalue_ref.isna() == m.pvalue_tpu.isna()).all()
-    assert np.abs(m.pvalue_ref[okp] - m.pvalue_tpu[okp]).max() < 1e-6
+    assert (m.pvalue_ref.isna() == m.pvalue_ours.isna()).all()
+    assert np.abs(m.pvalue_ref[okp] - m.pvalue_ours[okp]).max() < 1e-6
     # reference propagates NaN into every qvalue when any pvalue is NaN
     assert golden.qvalue.isna().all() and ours.qvalue.isna().all()
 
@@ -161,16 +161,16 @@ def test_quantify_borders_matches_reference(tmp_path, example_cool_session):
     assert rc in (0, None)
     ours = pd.read_csv(prefix + ".tsv", sep="\t")
     assert len(ours) == len(golden)
-    m = golden.merge(ours, on=["bin1", "bin2"], suffixes=("_ref", "_tpu"))
+    m = golden.merge(ours, on=["bin1", "bin2"], suffixes=("_ref", "_ours"))
     assert len(m) == len(golden)
-    assert (m.score_ref.isna() == m.score_tpu.isna()).all()
+    assert (m.score_ref.isna() == m.score_ours.isna()).all()
     ok = m.score_ref.notna()
-    assert np.abs(m.score_ref[ok] - m.score_tpu[ok]).max() < 5e-5
-    okp = m.pvalue_ref.notna() & m.pvalue_tpu.notna()
-    assert (m.pvalue_ref.isna() == m.pvalue_tpu.isna()).all()
+    assert np.abs(m.score_ref[ok] - m.score_ours[ok]).max() < 5e-5
+    okp = m.pvalue_ref.notna() & m.pvalue_ours.notna()
+    assert (m.pvalue_ref.isna() == m.pvalue_ours.isna()).all()
     # borders' weak correlations (pearson .15) sit where the Fisher
     # transform amplifies f32-vs-f64 rounding; observed max 1.7e-5
-    assert np.abs(m.pvalue_ref[okp] - m.pvalue_tpu[okp]).max() < 5e-5
+    assert np.abs(m.pvalue_ref[okp] - m.pvalue_ours[okp]).max() < 5e-5
 
 
 def test_detect_inter_sparse_path_matches_reference(
@@ -191,9 +191,9 @@ def test_detect_inter_sparse_path_matches_reference(
     key = ["bin1", "bin2", "kernel_id", "iteration"]
     assert len(o) == len(g)
     assert set(map(tuple, o[key].values)) == set(map(tuple, g[key].values))
-    m = g.merge(o, on=key, suffixes=("_ref", "_tpu"))
-    assert np.abs(m.score_ref - m.score_tpu).max() < 5e-5
-    assert np.abs(m.pvalue_ref - m.pvalue_tpu).max() < 1e-5
+    m = g.merge(o, on=key, suffixes=("_ref", "_ours"))
+    assert np.abs(m.score_ref - m.score_ours).max() < 5e-5
+    assert np.abs(m.pvalue_ref - m.pvalue_ours).max() < 1e-5
 
 
 def test_quantify_inter_sparse_path_matches_dense(

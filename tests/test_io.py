@@ -221,33 +221,6 @@ def test_cool_group_uri(example_cool):
     assert clr.chromnames == ["chr1", "chr2", "chr3"]
 
 
-@pytest.fixture()
-def example_mcool(example_cool, tmp_path):
-    """Multi-resolution .mcool built from the example fixture: the cooler
-    layout lives under /resolutions/<binsize> groups (the URI scheme the
-    reference accepts through cooler, reference utils/io.py:51,
-    contacts_map.py:129)."""
-    import h5py
-
-    path = str(tmp_path / "example.mcool")
-    with h5py.File(example_cool, "r") as src, h5py.File(path, "w") as dst:
-        res = dst.create_group("resolutions")
-        grp = res.create_group("1000")
-        for key in src:
-            src.copy(src[key], grp, name=key)
-        for k, v in src.attrs.items():
-            grp.attrs[k] = v
-        # a second (fake) resolution group so the group path genuinely
-        # selects between siblings
-        grp2 = res.create_group("4000")
-        for key in src:
-            src.copy(src[key], grp2, name=key)
-        for k, v in src.attrs.items():
-            grp2.attrs[k] = v
-        grp2.attrs["bin-size"] = 4000
-    return path
-
-
 def test_mcool_resolution_uri(example_mcool, example_cool):
     """Opening file.mcool::/resolutions/N reads that resolution's tables,
     matching the single-res file bit-for-bit; weight storage targets the

@@ -114,7 +114,6 @@ def _run_cli(argv, env, tmp_path, name):
 def cpu_env():
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["CHROMOSIGHT_TPU_PLATFORM"] = "cpu"
     return env
 
 
@@ -137,8 +136,8 @@ def test_cli_detect_borders_fused_single_device_matches_golden(
     key = ["bin1", "bin2", "kernel_id", "iteration"]
     assert len(o) == len(g)
     assert set(map(tuple, o[key].values)) == set(map(tuple, g[key].values))
-    m = g.merge(o, on=key, suffixes=("_ref", "_tpu"))
-    assert np.abs(m.score_ref - m.score_tpu).max() < 5e-5
+    m = g.merge(o, on=key, suffixes=("_ref", "_ours"))
+    assert np.abs(m.score_ref - m.score_ours).max() < 5e-5
 
 
 def test_cli_quantify_borders_fused_matches_unfused(

@@ -1,13 +1,14 @@
 """Compute accounting (MFU / roofline bookkeeping) unit tests.
 
 The reference ships no profiling (SURVEY §5); this subsystem is new in
-the TPU build: per-dispatch logical FLOPs + HBM byte bounds from XLA's
-HloCostAnalysis on the unoptimized lowering (no backend compile).
+this package: per-dispatch logical FLOPs and HBM byte bounds from the
+traced jaxpr, loop trip counts included (no lowering or compile).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import chromosight_tpu.observability as obs
 
@@ -58,12 +59,42 @@ def test_reset_clears_compute_totals():
     assert obs.compute_snapshot() == {}
 
 
-def test_device_peaks_cpu_is_none():
-    peak_flops, peak_bw, label = obs.device_peaks()
-    if jax.default_backend() == "cpu":
-        assert peak_flops is None and peak_bw is None and label == "cpu"
+def test_device_peaks_cpu_is_none(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    assert obs.device_peaks() is None
+
+
+class _FakeDevice:
+    def __init__(self, kind):
+        self.device_kind = kind
+
+
+@pytest.mark.parametrize(
+    "kind,expect",
+    [
+        (
+            "NVIDIA H100 80GB HBM3",
+            {
+                "bf16_flops": 989e12,
+                "tf32_flops": 495e12,
+                "fp32_flops": 67e12,
+                "hbm_bytes": 3.35e12,
+            },
+        ),
+        ("NVIDIA A100-SXM4-80GB", KeyError),
+        ("NVIDIA H200", KeyError),
+    ],
+)
+def test_device_peaks_by_device_kind(monkeypatch, kind, expect):
+    """Peaks come from the published table by exact device kind; an
+    accelerator missing from it raises instead of borrowing a rate."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(jax, "devices", lambda *a: [_FakeDevice(kind)])
+    if expect is KeyError:
+        with pytest.raises(KeyError):
+            obs.device_peaks()
     else:
-        assert peak_flops > 0 and peak_bw > 0
+        assert obs.device_peaks() == dict(expect, kind=kind)
 
 
 def test_band_cost_scales_with_kernel_taps():
@@ -97,3 +128,37 @@ def test_band_cost_scales_with_kernel_taps():
     small = run(3, 3, "band3")
     big = run(7, 7, "band7")
     assert big > 2 * small
+
+
+def test_jaxpr_cost_counts_loop_trips_and_convs():
+    """A static fori_loop body counts once per trip (XLA's cost analysis
+    counts it once); a loop of unknown trip count counts once; a conv
+    counts 2 x output x window x input features."""
+    from jax import lax
+
+    x = jnp.zeros((8, 8), jnp.float32)
+
+    def fixed(a):
+        return lax.fori_loop(0, 10, lambda i, v: v * 2.0 + 1.0, a)
+
+    # each trip: the body's two ops on 64 elements and the counter's add;
+    # bytes: their f32[8, 8] operands and results, scalar literals, and
+    # the int32 counter's operands and result
+    flops, traffic = obs.jaxpr_cost(jax.make_jaxpr(fixed)(x).jaxpr)
+    assert flops == 10 * (2 * 64 + 1)
+    assert traffic == 10 * (2 * (256 + 4 + 256) + 3 * 4)
+
+    def dynamic(a, n):
+        return lax.fori_loop(0, n, lambda i, v: v * 2.0, a)
+
+    assert obs.jaxpr_cost(jax.make_jaxpr(dynamic)(x, 3).jaxpr)[0] == 64 + 1
+
+    img = jnp.zeros((1, 3, 10, 12), jnp.float32)
+    ker = jnp.zeros((4, 3, 5, 5), jnp.float32)
+
+    def conv(a, k):
+        return lax.conv_general_dilated(a, k, (1, 1), "VALID")
+
+    assert obs.jaxpr_cost(jax.make_jaxpr(conv)(img, ker).jaxpr)[0] == (
+        2 * (1 * 4 * 6 * 8) * (3 * 5 * 5)
+    )

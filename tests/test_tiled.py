@@ -462,91 +462,25 @@ def test_iter_tile_counts_matches_host_tiles():
         assert all(c[1] == 0 for c in counts0)
 
 
-def test_conv2d_valid_phase_matches_shift_fma():
-    """The opt-in polyphase conv (CHROMOSIGHT_TPU_PHASE_CONV=1; see
-    convolve.py::_use_phase_conv for why it is off by default) must
-    reproduce the shift-FMA valid correlation, including the grouped
-    extra-kernel outputs that ride the same signal read."""
+@pytest.mark.parametrize("width", [40, 128, 300])
+def test_conv2d_valid_multik_matches_scipy(width):
+    """The shift-FMA conv (the one formulation, at band and tile widths
+    alike) against scipy's float64 correlate2d, for each kernel of a
+    stack and through the single-kernel entry point."""
     import jax.numpy as jnp
+    from scipy.signal import correlate2d
 
-    from chromosight_tpu.ops.convolve import (
-        _conv2d_valid_shifts,
-        conv2d_valid_phase,
-    )
+    from chromosight_tpu.ops.convolve import conv2d_valid, conv2d_valid_multik
 
-    rng = np.random.RandomState(7)
-    signal = jnp.asarray(rng.rand(40, 300).astype(np.float32))
-    kernel = jnp.asarray(rng.rand(9, 13).astype(np.float32))
-    ones = jnp.ones((9, 13), jnp.float32)
-
-    want = np.asarray(_conv2d_valid_shifts(signal, kernel))
-    got = np.asarray(conv2d_valid_phase(signal, kernel))
-    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
-
-    got_k, got_ones = conv2d_valid_phase(signal, kernel, (ones,))
-    np.testing.assert_allclose(np.asarray(got_k), want, rtol=2e-5, atol=2e-5)
-    want_ones = np.asarray(_conv2d_valid_shifts(signal, ones))
-    np.testing.assert_allclose(
-        np.asarray(got_ones), want_ones, rtol=2e-5, atol=2e-5
-    )
-
-
-def test_conv2d_valid_chunked_matches_shift_fma():
-    """The opt-in block-banded chunked-Toeplitz conv
-    (CHROMOSIGHT_TPU_CHUNK_CONV=1) must reproduce the shift-FMA valid
-    correlation, including the extra-kernel stencil groups and the
-    squared-signal groups that share the per-row slab read.  Signal
-    width chosen so w_out is not a multiple of the chunk size (edge
-    chunk padding exercised)."""
-    import jax.numpy as jnp
-
-    from chromosight_tpu.ops.convolve import (
-        _conv2d_valid_shifts,
-        conv2d_valid_chunked,
-    )
-
-    rng = np.random.RandomState(11)
-    signal = jnp.asarray(rng.rand(40, 333).astype(np.float32))
-    kernel = jnp.asarray(rng.rand(9, 13).astype(np.float32))
-    ones = jnp.ones((9, 13), jnp.float32)
-
-    want = np.asarray(_conv2d_valid_shifts(signal, kernel))
-    got = np.asarray(conv2d_valid_chunked(signal, kernel, chunk=64))
-    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
-
-    got_k, got_ones, got_sq = conv2d_valid_chunked(
-        signal, kernel, (ones,), (ones,), chunk=64
-    )
-    np.testing.assert_allclose(np.asarray(got_k), want, rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(
-        np.asarray(got_ones),
-        np.asarray(_conv2d_valid_shifts(signal, ones)),
-        rtol=2e-5,
-        atol=2e-5,
-    )
-    np.testing.assert_allclose(
-        np.asarray(got_sq),
-        np.asarray(_conv2d_valid_shifts(signal * signal, ones)),
-        rtol=2e-5,
-        atol=2e-5,
-    )
-
-
-def test_conv2d_valid_chunked_default_chunk_matches_shifts():
-    """The default-chunk path (chunk=None -> _chunk_width(), the TPU
-    production route) must match the shift-FMA formulation — guards the
-    env-derived default wiring, not just explicit chunk arguments."""
-    import jax.numpy as jnp
-
-    from chromosight_tpu.ops.convolve import (
-        _conv2d_valid_shifts,
-        conv2d_valid_chunked,
-    )
-
-    rng = np.random.default_rng(5)
-    x = jnp.asarray(rng.random((120, 700)), jnp.float32)
-    k = jnp.asarray(rng.random((9, 13)), jnp.float32)
-    a = np.asarray(conv2d_valid_chunked(x, k))
-    b = np.asarray(_conv2d_valid_shifts(x, k))
-    assert a.shape == b.shape
-    assert np.abs(a - b).max() < 1e-4
+    rng = np.random.default_rng(width)
+    signal = rng.random((50, width)).astype(np.float32)
+    kernels = rng.random((3, 9, 13)).astype(np.float32)
+    got = np.asarray(conv2d_valid_multik(jnp.asarray(signal), jnp.asarray(kernels)))
+    assert got.shape == (3, 42, width - 12)
+    for k in range(3):
+        want = correlate2d(
+            signal.astype(np.float64), kernels[k].astype(np.float64), mode="valid"
+        )
+        np.testing.assert_allclose(got[k], want, rtol=1e-5, atol=1e-4)
+    one = np.asarray(conv2d_valid(jnp.asarray(signal), jnp.asarray(kernels[1])))
+    np.testing.assert_array_equal(one, got[1])

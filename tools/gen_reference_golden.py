@@ -323,7 +323,7 @@ def main():
 
         # --dump stage snapshots (reference detection.py:227-231,264-285 and
         # contacts_map.py DumpMatrix stages): vendor the npz files so the
-        # TPU pipeline's per-stage matrices can be diffed, not just the
+        # package's per-stage matrices can be diffed, not just the
         # final coordinate tables.  --iterations 1 keeps one deterministic
         # snapshot per stage (later iterations overwrite with
         # refined-kernel outputs in both implementations).

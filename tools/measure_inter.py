@@ -24,7 +24,10 @@ init_compilation_cache()
 
 def main():
     cool = sys.argv[1] if len(sys.argv) > 1 else (
-        "/tmp/chromosight_bench/genome_trans_50000x3.cool"
+        str(
+            pathlib.Path(__file__).resolve().parents[1]
+            / "build" / "chromosight_bench" / "genome_trans_50000x3.cool"
+        )
     )
     reps = int(sys.argv[2]) if len(sys.argv) > 2 else 2
 

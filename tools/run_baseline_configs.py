@@ -1,5 +1,5 @@
-"""Run the five BASELINE.json benchmark configurations end-to-end and
-write a results table to BASELINE_RESULTS.md.
+"""Run the five BASELINE.json benchmark configurations end-to-end, in
+this process, and print a results table.
 
 Configs (BASELINE.json "configs"):
 1. loops detect on data_test/example.cool (raw norm)
@@ -113,19 +113,9 @@ def main():
     dt, st = run(["detect", "--no-plotting", "-I", example, p])
     rows.append(("5b detect --inter (example.cool)", dt, st, count_rows(p)))
 
-    out = REPO / "BASELINE_RESULTS.md"
-    with open(out, "w") as fh:
-        fh.write("# BASELINE.json configuration runs\n\n")
-        fh.write(
-            "Executed by tools/run_baseline_configs.py on the default JAX "
-            "device.\n\n| config | wall (s) | status | patterns |\n"
-            "|---|---|---|---|\n"
-        )
-        for name, dt, st, n in rows:
-            fh.write(f"| {name} | {dt:.1f} | {st} | {n} |\n")
-    print(f"wrote {out}")
+    print("| config | wall (s) | status | patterns |\n|---|---|---|---|")
     for name, dt, st, n in rows:
-        print(f"{name}: {dt:.1f}s {st} patterns={n}")
+        print(f"| {name} | {dt:.1f} | {st} | {n} |")
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ This is the genome-scale honesty check: the reference implementation
 (/root/reference, koszullab/chromosight v1.6.3, its own cmd_detect at
 ``cli/chromosight.py:625-896``) executes unmodified — through the same
 cooler/docopt shims tools/gen_reference_golden.py uses for the
-example.cool goldens — on the synthetic genomes the TPU pipeline is
+example.cool goldens — on the synthetic genomes this package is
 benchmarked on, and its WALL-CLOCK and pattern table are recorded so
 
 1. tests/test_golden_genome_scale.py can assert exact call parity at
